@@ -379,7 +379,7 @@ typedef struct {
 static void *rescore_worker(void *argp) {
     rescore_job *j = (rescore_job *)argp;
     /* keyword-only mode (raw_emb == NULL): the device-exact cosine stage
-     * (ops/exact_cos.py) already streamed the embeddings on the TPU, so
+     * (ops/exact_cos.py) already streamed the embeddings on the device, so
      * this call scores ONLY w_kw * keyword — no embedding/norm reads at
      * all, cutting host bytes/pair from ~dim*4 to the content bytes. */
     int with_cos = j->raw_emb != NULL || j->emb8 != NULL;

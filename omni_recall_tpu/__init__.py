@@ -1,12 +1,12 @@
-"""omni_recall_tpu — a TPU-native hybrid recall (RAG) framework.
+"""omni_recall_tpu — a device-accelerated hybrid recall (RAG) framework.
 
 Re-implements the full capability surface of the Omni Recall reference
-application (ASP.NET Core + Angular; see /root/reference) as a TPU-first
-framework:
+application (ASP.NET Core + Angular) as a framework whose search runs on
+an accelerator:
 
 - the per-chunk hybrid scoring loop (0.7 cosine + 0.2 keyword + 0.1 recency,
   reference: src/OmniRecall.Api/Services/RecallSearchService.cs:59-119) becomes
-  an HBM-resident structure-of-arrays index queried by a fused JAX/Pallas
+  a device-resident structure-of-arrays index queried by a fused int8
   kernel with certified-exact top-k,
 - ingestion (chunking, SHA-256 dedupe, batched embedding) becomes a vectorized
   pipeline appending into the device index,

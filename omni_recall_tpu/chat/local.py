@@ -1,4 +1,4 @@
-"""Local on-TPU chat provider: models/decoder.py behind the IAiChatClient
+"""Local on-device chat provider: models/decoder.py behind the IAiChatClient
 contract (complete(AiChatRequest) -> AiChatResponse, IAiChatClient.cs:5-9).
 
 NEW vs the reference, whose chat providers are all remote HTTPS
@@ -10,7 +10,7 @@ models/decoder.py save_params format, e.g. from tools/train_chat_demo.py) —
 the seed-0 default is an UNTRAINED model and is only useful for smoke tests
 and as a template for fine-tuning.
 
-Serving mechanics (the TPU-relevant part):
+Serving mechanics (the device-relevant part):
 - prompts are left-padded into power-of-two length buckets, so jit compiles
   once per bucket and every later call reuses the compiled executables,
 - the default scheduler is CONTINUOUS BATCHING (chat/serving.py): requests

@@ -15,7 +15,7 @@ True; parallelism code default 3 vs appsettings 2. Our code defaults mirror
 the reference *code* defaults; a shipped ``appsettings.json`` can override
 them exactly as in the reference.
 
-New (TPU engine) section: ``Engine`` configures the device index and kernel.
+New (device engine) section: ``Engine`` configures the device index and kernel.
 """
 
 from __future__ import annotations
@@ -185,9 +185,10 @@ class HealthOptions:
 
 @dataclass
 class EngineOptions:
-    """TPU device-engine knobs (new scope; no reference equivalent)."""
+    """Device-engine knobs (new scope; no reference equivalent)."""
 
-    # scoring backend: oracle (host NumPy) | xla (jnp) | pallas (fused kernel)
+    # scoring backend: oracle (host NumPy) | xla (jnp) | pallas (the int8
+    # slice scan, through the platform's route — ops/routes.py)
     backend: str = "xla"
     # >0: row-shard the device index over the first N local devices on a
     # 1-D 'shards' mesh (parallel/mesh.py) — the multi-chip serving mode.
@@ -199,7 +200,7 @@ class EngineOptions:
     # index capacity grows in these row blocks (bounds recompilation)
     capacity_block: int = 8192
     # reference candidate window (RecallSearchService.cs:26); <=0 disables the
-    # window and scores the whole index (the TPU-scale mode)
+    # window and scores the whole index (the device-scale mode)
     recent_window: int = 300
     # device candidates fetched per query for host exact-rescore; certificate
     # escalation multiplies by 4 until exact
@@ -208,15 +209,14 @@ class EngineOptions:
     bloom_bits: int = 2048
     ngram: int = 4
     bloom_hashes: int = 2
-    # device embedding storage for the scan: f32 | bf16 | int8. Quantized
-    # formats halve/quarter HBM traffic; exactness is preserved via the
-    # certificate (per-row error norms for int8, margin eps for bf16).
+    # device embedding storage for the scan: f32 | int8. int8 quarters the
+    # scan's memory traffic; exactness is preserved via the certificate
+    # (per-row error norms, ops/scan.py).
     scan_dtype: str = "f32"
     # >0 enables the request-coalescing executor: concurrent searches within
     # this window share one device pass (search/coalesce.py)
     coalesce_window_ms: float = 0.0
-    # largest coalesced batch per device pass; the measured throughput
-    # optimum on v5e at 1M chunks is ~1536 (docs/STATUS_R2.md)
+    # largest coalesced batch per device pass
     coalesce_max_batch: int = 1536
     # exact=True (default): certified-exact ranking (device candidates +
     # float64 host rescore + certificate). exact=False: approximate profile —
@@ -271,24 +271,6 @@ class EngineOptions:
     # refine gather + kernel (the serving stage's second-largest device
     # cost) per batch.
     direct_select: bool = False
-    # packed single-i32 kernel emit for the coarse scan (bit-identical
-    # decode outside the kernel, pinned by tests/test_pallas_scorer.py):
-    # the pair (vals, idxs) outputs pad their tiny last dim to 128 lanes —
-    # 10-40x HBM write amplification — and the key emit halves it. MEASURED
-    # SLOWER on chip and kept OFF: 18.0 vs 15.3 ms/batch at the (1024, 2)
-    # 1M serving layout (tools/probe_direct_serve.py SK row) — the XLA-side
-    # decode (bitcast + iota + transpose over [B, slices, t1]) costs more
-    # than the padded tile writes save, so the padding is NOT the
-    # bottleneck it reads as. Kept as a knob because the balance may flip
-    # on hardware with different HBM-write/VPU ratios.
-    packed_emit: bool = False
-    # transposed packed-key emit for the coarse scan (r5 default): the
-    # emitted block keeps the query batch on the minor dimension, removing
-    # the 128-lane padding amplification of the pair/packed layouts
-    # (ops/pallas_scorer.py _make_topt_kernel_int8_coarse_keys_t; decode
-    # values match the packed path bit for bit). Falls back to the pair
-    # emit automatically when the shape conditions don't hold.
-    transposed_emit: bool = True
     # compact-selection width override (0 = auto, 32): smaller slices cut
     # the DD raw-plane gather and the host keyword width per query; the
     # certificate bound becomes the (t_out+1)-th bound, so thin margins
@@ -300,14 +282,12 @@ class EngineOptions:
     # and failures escalate to the full fused scan. Cuts per-query scan work
     # from 2N(d + bloom_bits) to 2Nd ops on embedding-backed queries.
     coarse_prepass: bool = True
-    # coarse-scan extraction layout override (0 = auto, search/engine.py
-    # _coarse_layout): sub-slice width and per-slice extraction depth. The
-    # (sub, t) pair trades extraction passes (scan cost grows ~linearly
-    # with t; tools/sweep_serving_layout.py) against collision safety (a
-    # true top row is lost only when > t of a query's top rows land in one
-    # sub-slice — the certificate then fails and the query escalates, so
-    # exactness is never at risk, only throughput).
-    coarse_sub: int = 0
+    # coarse-scan extraction depth override (0 = auto, search/engine.py
+    # _scan_layout). Depth trades extraction passes (scan cost grows with
+    # t) against collision safety (a true top row is lost only when > t of
+    # a query's top rows land in one slice — the certificate then fails
+    # and the query escalates, so exactness is never at risk, only
+    # throughput).
     coarse_t: int = 0
 
 

@@ -145,7 +145,7 @@ class ReindexDocumentResponse:
 
 @dataclass(frozen=True)
 class TrainEncoderResponse:
-    """POST /api/documents/train result (new TPU scope: the corpus-trained
+    """POST /api/documents/train result (new scope: the corpus-trained
     local encoder; the reference has no trainable provider). Counters
     aggregate the per-document reindex that re-embeds the corpus with the
     freshly trained encoder."""

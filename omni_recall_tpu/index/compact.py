@@ -30,7 +30,7 @@ asserts equality row for row).
 Soundness of the int8-backed embedding column: the scan kernel's
 certificate treats the true row as a unit vector c with
 ||c - c_hat|| <= err_row, c_hat = dequantized q8*scale
-(ops/pallas_scorer.py prepare_int8_query). Here the host's exact score
+(ops/scan.py prepare_int8_query). Here the host's exact score
 normalizes the materialized row (cos = q.c_hat / (|q||c_hat|)), i.e. the
 "true" row is c = c_hat/||c_hat||, and
 
@@ -149,6 +149,9 @@ def make_tables(
     # the widening alone costs ~10 s of host memory traffic)
     if amp_center + amp_noise > 127:
         raise ValueError("amp_center + amp_noise must stay <= 127")
+    if noise_k < 1 or noise_k & (noise_k - 1):
+        # row_ids_np/rows_jnp pick a noise row with a mask (& (noise_k-1))
+        raise ValueError(f"noise_k must be a power of two, got {noise_k}")
     rng = np.random.default_rng(seed)
     center8 = rng.integers(
         -amp_center, amp_center + 1, size=(n_clusters, d), dtype=np.int16
@@ -282,7 +285,6 @@ def build_compact_engine(
         candidate_m=128, bloom_bits=512, scan_dtype="int8",
         capacity_block=max(8192, n // 64),
         refine=False, device_exact_cos=False, direct_select=True,
-        coarse_sub=1024 if n >= (1 << 20) else 0,
         coarse_t=2 if n >= (1 << 20) else 0,
         select_t_out=32,
     )

@@ -102,7 +102,7 @@ class HashEmbeddingClient:
 class LocalEncoderEmbeddingClient:
     """On-device transformer embedder (models/encoder.py) as an embedding
     provider: the framework runs fully self-contained — ingestion and query
-    embeddings computed on the TPU, no network dependency. NEW vs the
+    embeddings computed on the device, no network dependency. NEW vs the
     reference, whose embeddings are all remote HTTPS
     (GeminiEmbeddingClient.cs); selected with Embeddings:Provider=Local.
 

@@ -15,7 +15,7 @@ Behavioral mirror of the reference's DocumentIngestionService
 - reindex re-embeds all chunks in chunk-index order with per-status counters,
   keeping the old vector unless the new embed fully succeeded (:220-291).
 
-TPU deviation (documented): created_at_utc is stamped under the index append
+Deviation (documented): created_at_utc is stamped under the index append
 lock rather than before embedding, so device index row order is exactly
 (created_at, seq) order — which makes the reference's "300 most recent"
 candidate window a row-range mask on device (see index/device_index.py).
@@ -258,7 +258,7 @@ class DocumentIngestionService:
             document_id, len(updated), embedded, rate_limited, empty, failed, reindexed_at
         )
 
-    # -- train (new TPU scope: corpus-trained local encoder) --
+    # -- train (new scope: corpus-trained local encoder) --
 
     def train_embedder(
         self, steps: int = 300, seed: int = 0
@@ -271,7 +271,7 @@ class DocumentIngestionService:
         self-supervised fine-tune (models/finetune.py, the exact procedure
         the real-corpus campaign measures) -> hot-swap the client's params
         -> reindex every document so stored vectors agree with the new
-        encoder (the TPU-native upgrade of the reference's reindex
+        encoder (the on-device upgrade of the reference's reindex
         re-embed + swap, DocumentIngestionService.cs:220-291). Searches
         racing the reindex may briefly mix old-encoder rows with
         new-encoder queries — a quality blip only; the engine's exactness
@@ -332,7 +332,7 @@ class DocumentIngestionService:
     ) -> list[EmbeddingResult]:
         if not texts:
             return []
-        # device-side providers embed the whole batch in one pass (one TPU
+        # device-side providers embed the whole batch in one pass (one device
         # dispatch); the reference's bounded-parallel loop exists for REMOTE
         # providers' HTTP latency (DocumentIngestionService.cs:309-328)
         batch_embed = getattr(self.embedding_client, "embed_batch", None)

@@ -3,19 +3,18 @@
 The reference's chat path is remote-only (GeminiChatClient.cs /
 GitHubModelsChatClient.cs over HTTPS). Together with the local encoder
 (models/encoder.py as the embedding provider) this module completes the
-fully self-contained TPU stack: ingestion, recall, AND answer generation all
+fully self-contained on-device stack: ingestion, recall, AND answer generation all
 run on the device with zero network dependency. Selected with
 Ai:Provider=Local (chat/local.py wraps it in the IAiChatClient contract).
 
-TPU-first serving design:
+Serving design:
 - **byte-level reversible vocabulary** (PAD/BOS/EOS + 256 bytes, padded to
-  384 rows so the LM head tiles the MXU lanes) — generation must detokenize,
+  384 rows, a multiple of the matrix tile) — generation must detokenize,
   so the encoder's hashed vocabulary is not reusable here,
 - **left-padded prompts**: every row of a batch ends at the same position,
   so the KV cache advances with ONE scalar position per step instead of
-  per-row dynamic scatters (the standard TPU serving layout),
-- **prefill/decode split**: prefill runs the full prompt through the MXU in
-  one batched pass and writes the KV cache; decode is a `lax.scan` of
+  per-row dynamic scatters (the standard serving layout),
+- **prefill/decode split**: prefill runs the full prompt in one batched pass and writes the KV cache; decode is a `lax.scan` of
   single-token steps against the static-shape cache — no Python loop, no
   recompiles, one compilation per (batch, prompt_len, n_steps) bucket,
 - matmuls carry ``preferred_element_type=float32`` with bf16 compute/cache,

@@ -4,9 +4,9 @@ The reference has no local model — every embedding/LLM call is remote HTTPS
 (SURVEY.md §2.3). This module is the framework's local model family: a
 hashed-vocabulary transformer encoder producing L2-normalized text embeddings
 compatible with the device index, plus a contrastive (InfoNCE) training step
-so users can fine-tune their own memory embedder on TPU.
+so users can fine-tune their own memory embedder on the device.
 
-TPU-first design:
+Design:
 - all matmuls carry ``preferred_element_type=float32`` and run in bf16 via a
   configurable compute dtype,
 - parameters carry ``jax.sharding.PartitionSpec``s for tensor parallelism

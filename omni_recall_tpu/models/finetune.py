@@ -5,7 +5,7 @@ augmentation) must retrieve its own chunk against in-batch negatives —
 entirely self-supervised, no labeled queries. This is what turns the
 untrained local encoder (recall@10 ~0.65 on the real-corpus campaign) into
 the best measured provider (~0.96), and it is the engine behind the
-``POST /api/documents/train`` admin route (the TPU-native upgrade of the
+``POST /api/documents/train`` admin route (the on-device upgrade of the
 reference's reindex re-embed + swap semantics,
 DocumentIngestionService.cs:220-291: there the vectors come back from a
 remote API; here the provider itself is trained on the ingested corpus and

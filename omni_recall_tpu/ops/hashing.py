@@ -17,7 +17,7 @@ cannot be computed exactly on-device at scale, so the device kernel computes a
   ``sum_{j in S_t} w[j] = 1/T`` for each term ``t`` (weight 1/(T*|S_t|) per
   bit, summed over terms sharing a bit). Then
   ``kw_ub(chunk) = sum_j w[j] * bit[chunk, j]`` — a single [bits] dot product
-  per chunk that rides the MXU as ``bits @ W`` for a whole query batch.
+  per chunk, a ``bits @ W`` matrix product for a whole query batch.
 
 Soundness: for every present term all bits in S_t are set, contributing the
 full 1/T; absent terms contribute >= 0. Hence kw_ub >= (#present)/T = kw.
@@ -94,10 +94,11 @@ def chunk_signature(
 ) -> np.ndarray:
     """Packed u8 bloom signature (shape [W = bloom_bits // 8]) for a chunk.
 
-    Kernel-friendly bit layout: bit position j lives in word (j mod W) at bit
-    (j div W). Decoding is then a lane-aligned concatenation of the 8
-    shift-AND planes ``[(words >> b) & 1 for b in range(8)]`` — no
-    minor-dimension reshapes on TPU (see ops/pallas_scorer.py).
+    Plane-major bit layout: bit position j lives in word (j mod W) at bit
+    (j div W). Decoding is then a concatenation of the 8 shift-AND planes
+    ``[(words >> b) & 1 for b in range(8)]`` (ops/scan.py bloom_bits; the
+    GPU kernel permutes the weights to decode word chunks in registers,
+    ops/triton_scan.py permute_kw).
     """
     assert bloom_bits % 8 == 0
     w = bloom_bits // 8

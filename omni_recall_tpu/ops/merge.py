@@ -1,10 +1,7 @@
-"""Top-k-with-payload for TPU: one stable co-sort instead of top_k + gather.
+"""Top-k-with-payload: one stable co-sort instead of top_k + gather.
 
-XLA's TPU lowering of ``take_along_axis`` on a [B, n] minor-dim gather is
-slow (~2.8 ms for B=1536, n=1024, k=128 — measured on v5e, see
-docs/STATUS_R2.md), while a single stable ``lax.sort`` carrying the payload
-costs ~0.8 ms. ``lax.top_k`` itself lowers to a sort anyway, so co-sorting
-the payload in the same call removes the gather for free.
+A single stable ``lax.sort`` carrying the payload replaces ``lax.top_k``
+followed by a ``take_along_axis`` gather of the payload.
 
 Tie semantics match ``lax.top_k``: the sort is stable, so equal values keep
 their original (ascending-position) order — the engine's deterministic

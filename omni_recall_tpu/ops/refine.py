@@ -20,7 +20,7 @@ roughly the requested top-k:
   with eq2, ec2 ~ 3e-5 at d=768 (vs 8e-3 for one plane). The f32 evaluation
   of t_i*s_j*dot_ij and the 3 adds rounds at ~1e-6 relative on O(1) values
   (covered by REFINE_EPS below).
-- **keyword** — the same bloom upper-bound dot as the fused kernel
+- **keyword** — the same bloom upper-bound dot as the scan
   (ceil-quantized weights: w8/127 >= w, min(.,1) cap): tight up to bloom
   false positives, exactly as sound as the scan's own keyword term.
 - **recency** — f32 exp over f32 created-days. The engine's exact recency
@@ -56,8 +56,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from omni_recall_tpu.ops.oracle import (
     COSINE_WEIGHT,
@@ -66,8 +64,6 @@ from omni_recall_tpu.ops.oracle import (
     RECENCY_WEIGHT,
 )
 
-_NEG_INF = -1e30  # finite in-kernel mask value; mapped to -inf outside
-
 # f32 combine rounding (~1e-6) + normalized-vs-oracle cosine gap (~3e-7)
 # + f32 recency-day rounding (~3e-6 on the weighted term) + exp ulp,
 # with ~5x headroom. Tightening it below 1e-5 buys nothing: the residual
@@ -75,42 +71,14 @@ _NEG_INF = -1e30  # finite in-kernel mask value; mapped to -inf outside
 REFINE_EPS = 3e-5
 
 
-def _fused_qg(b: int, m: int) -> int:
-    """Queries per kernel step: the VMEM budget caps the candidate tile at
-    ~2048 rows, and the batch must divide evenly."""
-    qg = max(1, min(16, 2048 // max(m, 1)))
-    while qg > 1 and b % qg:
-        qg //= 2
-    return qg
-
-
-def _fused_ok(d: int, b: int, m: int, bits: int) -> bool:
-    """Shapes the Pallas refine kernel supports on its MXU fast path.
-    Mosaic requires the q-tile's sublane dim (qg) divisible by 8 or equal
-    to the full batch — large escalation widths (m >= 512 forces qg <= 4)
-    fall back to the pure-XLA refine, which handles any m."""
-    qg = _fused_qg(b, m)
-    return (
-        d % 128 == 0 and bits % 128 == 0 and m % 8 == 0 and m >= 8
-        and (qg % 8 == 0 or qg == b)
-    )
-
-
 def _refine_dispatch(
     emb1, scale1, emb2, scale2, err2, bloom, created, valid,
     q, kw_w8, kw_bias, now_days, rows, vals,
 ):
-    """Fused Pallas kernel on TPU (compiled, supported shapes), pure-XLA
-    refine_ub otherwise. Both compute the same sound bounds; the choice is
-    resolved at trace time (backend is fixed per process)."""
-    if jax.default_backend() == "tpu" and _fused_ok(
-        emb1.shape[1], rows.shape[0], rows.shape[1], kw_w8.shape[1]
-    ):
-        return _refine_bounds_fused(
-            emb1, scale1, emb2, scale2, err2, bloom, created, valid,
-            q, kw_w8, kw_bias, now_days, rows, vals,
-        )
-    return refine_ub(
+    """The platform's refine implementation (ops/routes.py)."""
+    from omni_recall_tpu.ops import routes
+
+    return routes.current().refine(
         emb1, scale1, emb2, scale2, err2, bloom, created, valid,
         q, kw_w8, kw_bias, now_days, rows, vals,
     )
@@ -126,7 +94,7 @@ def refine_ub_from_scan(
     weights, and returns refined bounds [B, m]. Chained after the scan in
     the same dispatch stream — the engine reads all three arrays back in
     one sync."""
-    from omni_recall_tpu.ops.pallas_scorer import quantize_kw_weights
+    from omni_recall_tpu.ops.scan import quantize_kw_weights
 
     kw_w8 = quantize_kw_weights(kw_weights)
     return _refine_dispatch(
@@ -161,14 +129,13 @@ def refine_select_from_scan(
     its exact semantics while the readback shrinks from 3x[B, m+1] to
     ~3x[B, 32] (the dominant per-batch transport cost at serving batch
     sizes). ``r`` < m additionally halves-or-better the refine stage's
-    gather + kernel cost ([B, r, d] x2 int8 rows — the serving stage's
-    second-largest term, tools/probe_serve.py): on discriminative corpora
+    gather + dot cost ([B, r, d] x2 int8 rows): on discriminative corpora
     the exact kth sits far above the (r+1)-th scan bound, so certificates
     keep resolving; near-tie corpora escalate exactly as before.
     bound == -inf still means the returned slice covers the whole snapshot
     (nothing live was excluded anywhere)."""
     from omni_recall_tpu.ops.merge import top_k_with_payload
-    from omni_recall_tpu.ops.pallas_scorer import quantize_kw_weights
+    from omni_recall_tpu.ops.scan import quantize_kw_weights
 
     kw_w8 = quantize_kw_weights(kw_weights)
     b, m1 = vals_full.shape
@@ -348,156 +315,3 @@ def refine_ub(
         + REFINE_EPS
     )
     return jnp.where(ok, refined, -jnp.inf)
-
-
-# ---- fused Pallas refine kernel (TPU hot path) ----
-#
-# The pure-XLA refine_ub above lowers the [B, m, d] batched int8 dots and
-# the [B, m, 8W] bloom-bit expansion through relayouts/VPU fallbacks that
-# cost ~3x the MXU floor (measured ~36 ms/batch at B=1536, m=128 vs ~7 ms
-# for the fused kernel). The kernel keeps the SAME math — four exact int32
-# MXU dots + bloom decode + f32 combine — so the module's soundness
-# derivation applies unchanged (f32 combine rounding is covered by
-# REFINE_EPS; the op order differs from refine_ub only in the f32 scale
-# combine, within the same ~1e-6 budget).
-#
-# Layout: candidates are gathered (XLA take) into flat query-major slabs
-# [B*m, ...]; the grid walks candidate tiles of ct = qg*m rows, i.e. the
-# candidates of qg consecutive queries. Each step dots its qg queries
-# against the whole tile ([qg, ct] upper bounds) and writes only the
-# block-diagonal [qg, m] slice each query owns. The qg-fold over-compute is
-# the price of feeding the MXU 128-lane tiles; at qg=16 the whole kernel is
-# ~34 ns/candidate (measured near the 4-dot + bloom-dot MXU floor).
-
-
-def _make_refine_kernel_full(qg: int, ct: int, m: int):
-    def kernel(q1_ref, q2_ref, t1_ref, t2_ref, eqn_ref, qn_ref, kwb_ref,
-               kw_ref, c1_ref, c2_ref, bloom_ref, s1_ref, s2_ref, ec2_ref,
-               add_ref, out_ref):
-        def bdot(a, bm):  # [qg, d] x [ct, d] -> [qg, ct] exact int32
-            return jax.lax.dot_general(
-                a, bm,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32)
-
-        q1, q2 = q1_ref[:], q2_ref[:]
-        c1, c2 = c1_ref[:], c2_ref[:]
-        t1, t2 = t1_ref[:], t2_ref[:]          # [qg, 1]
-        s1, s2 = s1_ref[:], s2_ref[:]          # [1, ct]
-        cos = (
-            s1 * (t1 * bdot(q1, c1) + t2 * bdot(q2, c1))
-            + s2 * (t1 * bdot(q1, c2) + t2 * bdot(q2, c2))
-        )
-        ec2 = ec2_ref[:]                       # [1, ct]
-        delta = eqn_ref[:] * (1.0 + ec2) + qn_ref[:] * ec2
-
-        words = bloom_ref[:].astype(jnp.int32)  # [ct, W]
-        bits = jnp.concatenate(
-            [((words >> b) & 1) for b in range(8)], axis=1
-        ).astype(jnp.int8)  # [ct, W*8]
-        kwd = jax.lax.dot_general(
-            kw_ref[:], bits,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)  # [qg, ct]
-        kw = jnp.minimum(kwd * (1.0 / 127.0) + kwb_ref[:], 1.0)
-
-        refined = (
-            COSINE_WEIGHT * (cos + delta)
-            + KEYWORD_WEIGHT * kw
-            + add_ref[:]  # 0.1*recency + REFINE_EPS, or _NEG_INF (invalid)
-        )
-        # emit the FULL [qg, ct] tile; the caller extracts the block
-        # diagonal (query g owns columns [g*m, (g+1)*m)) in XLA — in-kernel
-        # lane slices at non-128-aligned offsets (m = 64 refine width) are
-        # unsupported by Mosaic ("offset mismatch on non-concat dimension"),
-        # and the extra [B, ct] f32 write is ~13 MB/batch, negligible
-        out_ref[:] = refined
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _refine_bounds_fused(
-    emb1, scale1, emb2, scale2, err2, bloom, created, valid,
-    q, kw_w8, kw_bias, now_days, rows, vals, interpret: bool = False,
-):
-    """Pallas-fused refined bounds [B, m]: gather (XLA take) + fused kernel.
-    Same contract as refine_ub (with pre-quantized kw weights)."""
-    b, m = rows.shape
-    d = emb1.shape[1]
-    w = bloom.shape[1]
-
-    qg = _fused_qg(b, m)  # gated by _fused_ok: qg % 8 == 0 or qg == b
-    ct = qg * m
-
-    safe_rows = jnp.maximum(rows, 0)
-    flat = safe_rows.reshape(-1)
-    gc1 = jnp.take(emb1, flat, axis=0)            # [BM, d] i8
-    gc2 = jnp.take(emb2, flat, axis=0)            # [BM, d] i8
-    gbloom = jnp.take(bloom, flat, axis=0)        # [BM, W] u8
-    # per-row f32 sidecars ride ONE gather: five separate [N] gathers cost
-    # ~1.5 ms EACH on this chip (row-gather of 4-byte rows is all dispatch
-    # overhead), ~8 ms of the stage; stacked as [N, 5] they are one ~20-byte
-    # row gather (~1 ms) plus a cheap [BM, 5] transpose
-    sidecar = jnp.stack(
-        [scale1, scale2, err2, created, valid.astype(jnp.float32)], axis=1
-    )
-    gsc = jnp.take(sidecar, flat, axis=0).T       # [5, BM]
-    gs1 = gsc[0:1]                                # [1, BM]
-    gs2 = gsc[1:2]
-    gec2 = gsc[2:3]
-    rec = jnp.exp(
-        jnp.minimum(gsc[3] - now_days, 0.0) / RECENCY_HALF_LIFE_DAYS
-    )
-    ok = (
-        (rows.reshape(-1) >= 0)
-        & (gsc[4] > 0.5)
-        & (vals.reshape(-1) > -jnp.inf)
-    )
-    add = jnp.where(
-        ok, RECENCY_WEIGHT * rec + REFINE_EPS, _NEG_INF
-    )[None, :].astype(jnp.float32)
-
-    q1, t1, q2, t2, eq2 = quantize_queries_int8_residual(q)
-    qn = jnp.linalg.norm(q, axis=1, keepdims=True) * (1.0 + 1e-6)
-
-    grid = (b * m // ct,)
-    out = pl.pallas_call(
-        _make_refine_kernel_full(qg, ct, m),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((qg, d), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, d), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, 1), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, 1), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, 1), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, 1), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qg, 1), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (qg, kw_w8.shape[1]), lambda k: (k, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((ct, d), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ct, d), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ct, w), lambda k: (k, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ct), lambda k: (0, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ct), lambda k: (0, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ct), lambda k: (0, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ct), lambda k: (0, k), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (qg, ct), lambda k: (k, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, ct), jnp.float32),
-        interpret=interpret,
-    )(
-        q1, q2, t1, t2, eq2, qn, kw_bias[:, None].astype(jnp.float32),
-        kw_w8, gc1, gc2, gbloom, gs1, gs2, gec2, add,
-    )
-    # block-diagonal extraction: query q (local index g = q % qg within its
-    # tile) owns columns [g*m, (g+1)*m) of its row
-    g_idx = (jnp.arange(b, dtype=jnp.int32) % qg)[:, None, None]
-    out = jnp.take_along_axis(out.reshape(b, qg, m), g_idx, axis=1)[:, 0, :]
-    return jnp.where(out <= _NEG_INF * 0.5, -jnp.inf, out)

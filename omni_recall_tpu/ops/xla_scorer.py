@@ -1,8 +1,7 @@
 """Pure-XLA batched upper-bound scorer + top-M candidate selection.
 
-This is the jnp reference implementation of the device scoring pass; the
-fused Pallas kernel (ops/pallas_scorer.py) must match it bit-for-bit on the
-same inputs. It computes, for every valid chunk row inside the candidate
+This is the jnp reference implementation of the device scoring pass over
+f32 storage (the int8 slice scan is ops/scan.py). It computes, for every valid chunk row inside the candidate
 window, a *sound upper bound* of the reference's hybrid score
 (RecallSearchService.cs:59-67):
 
@@ -94,10 +93,10 @@ def ub_scores(
         kw_weights, bits,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
-        # HIGHEST like the cosine dot above: the TPU default runs bf16,
-        # whose ~1e-3 weight-rounding undershoot exceeds CERT_EPS=1e-4 and
-        # would make this "sound upper bound" unsound (the Pallas kernel's
-        # eps derivation covers exactly this; here exact f32 is cheap)
+        # HIGHEST like the cosine dot above: a reduced-precision default
+        # (bf16, or TF32 on a GPU) rounds the weights by ~1e-3, which
+        # exceeds CERT_EPS=1e-4 and would make this "sound upper bound"
+        # unsound
         precision=jax.lax.Precision.HIGHEST,
     )  # [B, n]
     kw = jnp.minimum(kw + kw_bias[:, None], 1.0)

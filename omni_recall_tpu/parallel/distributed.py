@@ -1,10 +1,10 @@
-"""Multi-host (DCN) initialization.
+"""Multi-host initialization.
 
-Single-slice multi-chip scaling rides ICI via the 1-D 'shards' mesh
-(parallel/mesh.py). For multi-host slices or multi-slice pods, JAX's
-distributed runtime must initialize BEFORE any backend use; afterwards
-``jax.devices()`` spans all hosts and the same mesh/shard_map code applies
-unchanged — collectives ride ICI within a slice and DCN across slices.
+The devices of one host are scaled over by the 1-D 'shards' mesh
+(parallel/mesh.py). For several hosts, JAX's distributed runtime must
+initialize BEFORE any backend use; afterwards ``jax.devices()`` spans all
+hosts and the same mesh/shard_map code applies unchanged — collectives
+ride the intra-host links within a host and the network across hosts.
 
 The index's host mirrors stay per-process: each host owns the global arrays
 (they are small relative to HBM at 10M chunks) and uploads its shard via the

@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
 The reference has no distributed layer at all (single-process web app,
-SURVEY.md §2.3); multi-chip scaling is new TPU scope. The chunk index shards
-its row axis over a 1-D ``'shards'`` mesh (ICI within a slice); multi-host
-slices initialize via ``jax.distributed`` before mesh construction.
+SURVEY.md §2.3); multi-device scaling is new scope. The chunk index shards
+its row axis over a 1-D ``'shards'`` mesh: the cards of a host reach each
+other all to all, so the mesh follows the algorithm alone. Multi-host runs
+initialize via ``jax.distributed`` before mesh construction.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Multi-chip sharded scoring: per-shard top-k + all-gather merge.
 
-The chunk index rows shard over a 1-D ``'shards'`` mesh. Each shard scores
-its local rows — with either the pure-XLA upper-bound pass or the fused
-Pallas kernel (f32/bf16 or int8 storage) — takes a LOCAL top-(m+1), and the
-small [S, B, m+1] candidate tensors are all-gathered over ICI and merged
-into the global top-m + boundary. Exact because scoring is pointwise per
-row: the global top-k is contained in the union of per-shard top-k's, and
+The chunk index rows shard over a 1-D ``'shards'`` mesh (every card reaches
+every other at the same rate, so the mesh follows the algorithm alone).
+Each shard scores its local rows — with either the pure-XLA upper-bound
+pass (f32 storage) or the platform's int8 slice scan (ops/routes.py) —
+takes a LOCAL top-(m+1), and the small [S, B, m+1] candidate tensors are
+all-gathered and merged into the global top-m + boundary. Exact because
+scoring is pointwise per row: the global top-k is contained in the union of per-shard top-k's, and
 the merged boundary (max of the (m+1)-th merged candidate and every shard's
 own boundary) bounds every excluded row. Determinism: ties inside a shard
 resolve to the lowest local row, the merge re-sorts on (value, gather
@@ -19,7 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from omni_recall_tpu.ops import pallas_scorer, xla_scorer
+from omni_recall_tpu.ops import scan, xla_scorer
 from omni_recall_tpu.ops.merge import top_k_with_payload
 
 
@@ -46,12 +47,18 @@ def _globalize_and_merge(out_v, out_i, row_offset, m):
 
 
 class ShardedScorer:
-    """Caches jitted shard_map scorers per (mode, m, t, sub)."""
+    """Caches jitted shard_map scorers per (mode, m, t, sub). ``route`` is
+    the platform's device route (ops/routes.py; default: the current
+    platform's)."""
 
-    def __init__(self, mesh: Mesh, interpret: bool = False) -> None:
+    def __init__(self, mesh: Mesh, route=None) -> None:
+        if route is None:
+            from omni_recall_tpu.ops import routes
+
+            route = routes.current()
         self.mesh = mesh
         self.n_shards = int(mesh.devices.size)
-        self.interpret = interpret
+        self.route = route
         self._fns: dict[tuple, object] = {}
 
     def row_sharding(self, ndim: int) -> NamedSharding:
@@ -87,70 +94,28 @@ class ShardedScorer:
 
         return local_fn
 
-    def _local_kw_only(self, m, t, sub):
-        """Bloom+recency-only local body for embedding-less queries (their
-        cosine is exactly 0) — no emb operand at all."""
-        interpret = self.interpret
-
-        def local_fn(bloom, created, valid, kw_w, kw_b, now_days, window_start):
-            n_local = bloom.shape[0]
-            shard = jax.lax.axis_index("shards")
-            row_offset = (shard * n_local).astype(jnp.int32)
-            add_row = pallas_scorer.make_add_row(
-                created, valid, now_days, window_start, row_offset=row_offset
-            )
-            kw_w8 = pallas_scorer.quantize_kw_weights(kw_w)
-            vals, idxs = pallas_scorer.block_topt_kw_only(
-                bloom, kw_w8, kw_b[:, None], add_row,
-                t=t, sub=sub, interpret=interpret,
-            )
-            out_v, out_i = pallas_scorer._merge_topm(vals, idxs, m)
-            return _globalize_and_merge(out_v, out_i, row_offset, m)
-
-        return local_fn
-
-    def _local_pallas(self, m, t, sub, int8: bool, coarse: bool = False):
-        interpret = self.interpret
+    def _local_scan(self, terms, m, t, sub):
+        """int8 slice scan of one term set over the local rows; the bound
+        operands come from the shared constructions (ops/scan.py
+        scan_operands, soundness-critical)."""
+        impl = self.route.scan
 
         def local_fn(*args):
-            if int8:
-                emb, scale, err, bloom, created, valid, q, kw_w, kw_b, now_days, window_start = args
+            if terms == "kw":  # no embedding operands at all
+                emb = scale = err = q = None
+                bloom, created, valid, kw_w, kw_b, now_days, window_start = args
             else:
-                emb, bloom, created, valid, q, kw_w, kw_b, now_days, window_start = args
-            n_local = emb.shape[0]
+                (emb, scale, err, bloom, created, valid, q, kw_w, kw_b,
+                 now_days, window_start) = args
+            n_local = created.shape[0]
             shard = jax.lax.axis_index("shards")
             row_offset = (shard * n_local).astype(jnp.int32)
-            if int8:
-                # soundness-critical bound construction shared with the
-                # single-device scans — see pallas_scorer.prepare_int8_query
-                q8, q_scale, eq, err_term = pallas_scorer.prepare_int8_query(q, err)
-                add_row = pallas_scorer.make_add_row(
-                    created, valid, now_days, window_start,
-                    row_offset=row_offset, err_term=err_term,
-                )
-                if coarse:
-                    q_bias = pallas_scorer.coarse_q_bias(eq, kw_w, kw_b)
-                    vals, idxs = pallas_scorer.block_topt_int8_coarse(
-                        emb, q8, add_row, scale[None, :], q_scale, q_bias,
-                        t=t, sub=sub, interpret=interpret,
-                    )
-                else:
-                    kw_w8 = pallas_scorer.quantize_kw_weights(kw_w)
-                    vals, idxs = pallas_scorer.block_topt_int8(
-                        emb, bloom, q8, kw_w8, kw_b[:, None], add_row,
-                        scale[None, :], q_scale,
-                        pallas_scorer.COSINE_WEIGHT * eq,
-                        t=t, sub=sub, interpret=interpret,
-                    )
-            else:
-                add_row = pallas_scorer.make_add_row(
-                    created, valid, now_days, window_start, row_offset=row_offset
-                )
-                vals, idxs = pallas_scorer.block_topt(
-                    emb, bloom, q, kw_w, kw_b[:, None], add_row,
-                    t=t, sub=sub, interpret=interpret,
-                )
-            out_v, out_i = pallas_scorer._merge_topm(vals, idxs, m)
+            ops = scan.scan_operands(
+                terms, emb, bloom, scale, err, created, valid, q, kw_w, kw_b,
+                now_days, window_start, row_offset=row_offset,
+            )
+            vals, idxs = impl(*ops, terms=terms, sub=sub, t=t)
+            out_v, out_i = scan.merge_topm(vals, idxs, m)
             return _globalize_and_merge(out_v, out_i, row_offset, m)
 
         return local_fn
@@ -159,15 +124,6 @@ class ShardedScorer:
 
     def local_rows(self, n_rows_padded: int) -> int:
         return n_rows_padded // self.n_shards
-
-    def pallas_budget(self, n_rows_padded: int, sub: int = 512) -> int:
-        """Max m supported per shard by the fused kernel at extraction depth
-        t; 0 when the local row count doesn't block-align."""
-        n_local = self.local_rows(n_rows_padded)
-        c = pallas_scorer._pick_block(n_local, 1)
-        if c == 0:
-            return 0
-        return n_local // min(sub, c)
 
     def refine_select_dd(
         self, dev, q, kw_w, kw_b, now_days, vals_full, idxs_full,
@@ -223,7 +179,7 @@ class ShardedScorer:
                 owned = (rows_g >= 0) & (loc >= 0) & (loc < n_local)
                 rows_local = jnp.where(owned, loc, -1)
                 vals_local = jnp.where(owned, vals_f[:, :r], -jnp.inf)
-                kw_w8 = pallas_scorer.quantize_kw_weights(kw_w_)
+                kw_w8 = scan.quantize_kw_weights(kw_w_)
                 refined_local = _refine._refine_dispatch(
                     emb1, scale1, emb2, scale2, err2, bloom, created, valid,
                     q_, kw_w8, kw_b_, now_, rows_local, vals_local,
@@ -243,9 +199,8 @@ class ShardedScorer:
                 owned_s = (rows_sel >= 0) & (loc_s >= 0) & (loc_s < n_local)
                 safe_s = jnp.where(owned_s, loc_s, 0)
                 c = jnp.take(raw, safe_s, axis=0)          # [B, k, d]
-                # SAME backend-dispatched DD as the single-device
-                # exact_cos_rows (pallas on TPU): the bench's sharded
-                # stage asserts bit-parity between the two paths
+                # SAME routed DD as the single-device exact_cos_rows, so
+                # the two paths produce the same bits
                 hi, lo, sabs = _ec.dd_rows(q_raw_, c)
                 hi = jax.lax.psum(jnp.where(owned_s, hi, 0.0), "shards")
                 lo = jax.lax.psum(jnp.where(owned_s, lo, 0.0), "shards")
@@ -274,39 +229,37 @@ class ShardedScorer:
         return fn(*args)
 
     def score_topm(
-        self, emb, bloom, created, valid, q, kw_w, kw_b, now_days, window_start,
-        m: int, mode: str = "xla", t: int = 8, sub: int = 512,
+        self, emb, bloom, created, valid, q, kw_w, kw_b, now_days,
+        window_start, m: int, mode: str = "xla", t: int = 8, sub: int = 128,
         scale=None, err=None,
     ):
+        """Sharded (ub_values[B, m+1], row_indices[B, m+1]). ``mode`` is
+        "xla" (f32 storage) or a scan term set (ops/scan.py TERM_SETS)."""
         key = (mode, m, t, sub)
         fn = self._fns.get(key)
         if fn is None:
             row = P("shards", None)
             vec = P("shards")
             rep = P()
-            if mode == "pallas_kw_only":
-                local = self._local_kw_only(m, t, sub)
-                in_specs = (row, vec, vec, rep, rep, rep, rep)
-            elif mode in ("pallas_int8", "pallas_int8_coarse"):
-                local = self._local_pallas(
-                    m, t, sub, int8=True, coarse=mode.endswith("_coarse")
-                )
-                in_specs = (row, vec, vec, row, vec, vec, rep, rep, rep, rep, rep)
-            elif mode == "pallas":
-                local = self._local_pallas(m, t, sub, int8=False)
-                in_specs = (row, row, vec, vec, rep, rep, rep, rep, rep)
-            else:
+            if mode == "xla":
                 local = self._local_xla(m)
                 in_specs = (row, row, vec, vec, rep, rep, rep, rep, rep)
+            elif mode == "kw":
+                local = self._local_scan(mode, m, t, sub)
+                in_specs = (row, vec, vec) + (rep,) * 4
+            else:
+                local = self._local_scan(mode, m, t, sub)
+                in_specs = (row, vec, vec, row, vec, vec) + (rep,) * 5
             fn = self._fns[key] = jax.jit(
                 jax.shard_map(
                     local, mesh=self.mesh,
                     in_specs=in_specs, out_specs=(rep, rep), check_vma=False,
                 )
             )
-        if mode == "pallas_kw_only":
+        if mode == "xla":
+            return fn(emb, bloom, created, valid, q, kw_w, kw_b, now_days,
+                      window_start)
+        if mode == "kw":
             return fn(bloom, created, valid, kw_w, kw_b, now_days, window_start)
-        if mode in ("pallas_int8", "pallas_int8_coarse"):
-            return fn(emb, scale, err, bloom, created, valid, q, kw_w, kw_b,
-                      now_days, window_start)
-        return fn(emb, bloom, created, valid, q, kw_w, kw_b, now_days, window_start)
+        return fn(emb, scale, err, bloom, created, valid, q, kw_w, kw_b,
+                  now_days, window_start)

@@ -9,6 +9,7 @@ from socketserver import ThreadingMixIn
 
 from omni_recall_tpu.config import load_config
 from omni_recall_tpu.server.app import build_app
+from omni_recall_tpu.utils.compile_cache import enable_compile_cache
 
 
 class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
@@ -23,6 +24,7 @@ def main() -> None:
     args = parser.parse_args()
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    enable_compile_cache()
     config = load_config(settings_file=args.settings)
     app = build_app(config)
     with make_server(args.host, args.port, app, server_class=ThreadingWSGIServer) as server:

@@ -130,7 +130,7 @@ class OmniRecallApp(WsgiApp):
                 "scan. Align the two settings.",
                 config.embeddings.dim, config.engine.embedding_dim,
             )
-        # snapshot restore (new TPU scope: the reference loses its in-memory
+        # snapshot restore (new scope: the reference loses its in-memory
         # store on restart, SURVEY.md §5): load the archived store and
         # device index before any service wiring. The device-slab fast path
         # skips bloom hashing + re-quantization entirely; a failed restore
@@ -438,7 +438,7 @@ class OmniRecallApp(WsgiApp):
 
     def _save_snapshot(self, request: Request) -> Response:
         """POST /api/snapshot — persist the store + device-index slabs
-        atomically to Storage:SnapshotDir (new TPU scope: first-class
+        atomically to Storage:SnapshotDir (new scope: first-class
         checkpoint/resume, SURVEY.md §5). Holds the engine mutation lock so
         the store view and the gathered slabs are one consistent state; a
         restart with the same config restores via the slab fast path."""

@@ -9,8 +9,8 @@ network when ``Health:ProbeExternalAi`` is true (:89-159, 3s timeout).
 Departures from the reference (new scope): with Ai:Provider=Local the
 chat path is on-device, so the remote probes are replaced by a synthetic
 healthy 'ai-local' row — except Gemini, which stays probed whenever it
-still serves the embeddings path. A TPU-specific probe reports
-device/engine state.
+still serves the embeddings path. A device-engine probe reports the
+device platform and kind and the index state.
 """
 
 from __future__ import annotations
@@ -147,10 +147,14 @@ class HealthProbeService:
                 dix = self.engine.device_index
                 if dix is None:
                     return HEALTHY, f"Engine backend={self.engine.options.backend} (host oracle)."
+                import jax
+
+                device = jax.devices()[0]
                 return HEALTHY, (
-                    f"Engine backend={self.engine.options.backend}; device index "
+                    f"Engine backend={self.engine.options.backend} on "
+                    f"{device.platform} ({device.device_kind}); device index "
                     f"{dix.n_valid}/{dix.n_rows} valid rows, dim={dix.dim}."
                 )
             except Exception as exc:
                 return UNHEALTHY, f"Engine probe failed: {exc}"
-        return self._timed("tpu-engine", run)
+        return self._timed("device-engine", run)

@@ -1,13 +1,15 @@
 """Coarse (cosine-only, keyword-capped) int8 prepass: soundness + parity.
 
 The coarse kernel replaces the per-chunk bloom keyword score with a sound
-per-query cap 0.2*min(1, sum_w + bias) (pallas_scorer.score_topm_int8_coarse).
+per-query cap 0.2*min(1, sum_w + bias) (ops/scan.py, term set "cos"; the
+Triton kernel runs in interpret mode here).
 These tests verify (a) every emitted value/bound is >= the true exact hybrid
 score, (b) the engine with the prepass enabled stays bit-identical to the
 oracle, including keyword-only queries (which skip the prepass), and (c) the
 sharded coarse mode merges identically.
 """
 
+import functools
 import string
 from datetime import datetime, timedelta, timezone
 
@@ -20,7 +22,7 @@ from omni_recall_tpu.index.device_index import DeviceIndex, to_days
 from omni_recall_tpu.index.records import ChunkRecord, DocumentRecord
 from omni_recall_tpu.index.store import InMemoryIngestionStore
 from omni_recall_tpu.models import hash_embedder
-from omni_recall_tpu.ops import hashing, oracle, pallas_scorer
+from omni_recall_tpu.ops import hashing, oracle, scan, triton_scan
 from omni_recall_tpu.ops.quantize import quantize_rows_int8
 from omni_recall_tpu.search.engine import RecallEngine
 
@@ -33,7 +35,7 @@ def _random_corpus(rng, n, dim=DIM):
     vocab = [
         "".join(rng.choice(list(string.ascii_lowercase), size=rng.integers(3, 9)))
         for _ in range(40)
-    ] + ["tpu", "kernel", "recall"]
+    ] + ["card", "kernel", "recall"]
     contents, embs, created = [], [], []
     for i in range(n):
         words = rng.choice(vocab, size=rng.integers(4, 20))
@@ -51,11 +53,11 @@ def test_coarse_kernel_values_are_sound_upper_bounds():
     emb = np.stack(embs).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     q_emb = np.stack([
-        hash_embedder.embed_text("tpu kernel recall", DIM),
+        hash_embedder.embed_text("card kernel recall", DIM),
         hash_embedder.embed_text(contents[17], DIM),
     ]).astype(np.float32)
     q_emb /= np.linalg.norm(q_emb, axis=1, keepdims=True)
-    queries = ["tpu kernel recall", contents[17][:20]]
+    queries = ["card kernel recall", contents[17][:20]]
 
     emb8, scale, err = quantize_rows_int8(emb)
     created_days = np.array([to_days(c) for c in created], dtype=np.float32)
@@ -66,12 +68,13 @@ def test_coarse_kernel_values_are_sound_upper_bounds():
         w[qi], b[qi] = hashing.query_bit_weights(oracle.query_terms(qtext), bits, 4, 1)
 
     m = 16
-    vals, idxs = pallas_scorer.score_topm_int8_coarse(
-        jnp.asarray(emb8), jnp.asarray(scale), jnp.asarray(err),
+    vals, idxs = scan.score_topm(
+        jnp.asarray(emb8), jnp.asarray(scale), jnp.asarray(err), None,
         jnp.asarray(created_days), jnp.asarray(valid),
         jnp.asarray(q_emb), jnp.asarray(w), jnp.asarray(b),
-        jnp.float32(to_days(NOW)), jnp.int32(0), m=m, t=6, sub=64,
-        interpret=True,
+        jnp.float32(to_days(NOW)), jnp.int32(0),
+        terms="cos", m=m, t=6, sub=64,
+        scan=functools.partial(triton_scan.scan_triton, interpret=True),
     )
     vals, idxs = np.asarray(vals), np.asarray(idxs)
 
@@ -126,7 +129,7 @@ def test_engine_with_coarse_prepass_matches_oracle():
     through to the full fused scan, and results stay bit-identical."""
     rng = np.random.default_rng(1)
     engine, oracle_engine, contents = _build_engine(rng, 500)
-    for qtext in [contents[3][:25], "tpu kernel", contents[450][:15]]:
+    for qtext in [contents[3][:25], "gpu kernel", contents[450][:15]]:
         q = hash_embedder.embed_text(qtext, DIM)
         got = engine.search(qtext, q, 5, now=NOW)
         want = oracle_engine.search(qtext, q, 5, now=NOW)
@@ -217,7 +220,7 @@ def test_mixed_batch_embedding_and_keyword_queries_exact():
     reqs = [
         (contents[7][:20], hash_embedder.embed_text(contents[7][:20], DIM), 4),
         (contents[99].split()[0], None, 3),
-        ("tpu recall", hash_embedder.embed_text("tpu recall", DIM), 5),
+        ("gpu recall", hash_embedder.embed_text("gpu recall", DIM), 5),
     ]
     got = engine.search_batch(reqs, now=NOW)
     for (qtext, qemb, k), hits in zip(reqs, got):
@@ -236,7 +239,7 @@ def test_sharded_coarse_mode_matches_oracle():
     rng = np.random.default_rng(4)
     mesh = shards_mesh(devices=jax.devices()[:4])
     engine, oracle_engine, contents = _build_engine(rng, 1024, mesh=mesh)
-    for qtext in [contents[11][:20], "kernel tpu"]:
+    for qtext in [contents[11][:20], "kernel gpu"]:
         q = hash_embedder.embed_text(qtext, DIM)
         got = engine.search(qtext, q, 5, now=NOW)
         want = oracle_engine.search(qtext, q, 5, now=NOW)
@@ -249,7 +252,7 @@ def test_sharded_coarse_mode_matches_oracle():
 def test_kw_only_prepass_matches_oracle_and_resolves():
     """Keyword-only queries (no embedding) are served by the bloom-only
     scan: results identical to the oracle on any corpus (ties escalate),
-    and a unique term at k=1 certifies on device without the fused kernel."""
+    and a unique term at k=1 certifies on device without the full hybrid scan."""
     rng = np.random.default_rng(21)
     # parity on the tie-heavy corpus (certificate escalates, stays exact)
     engine, oracle_engine, contents = _build_engine(rng, 200)
@@ -295,7 +298,7 @@ def test_sharded_kw_only_mode_matches_oracle():
     rng = np.random.default_rng(6)
     mesh = shards_mesh(devices=jax.devices()[:4])
     engine, oracle_engine, contents = _build_engine(rng, 1024, mesh=mesh)
-    for qtext in [contents[7].split()[0], "kernel", "tpu recall"]:
+    for qtext in [contents[7].split()[0], "kernel", "gpu recall"]:
         got = engine.search(qtext, None, 5, now=NOW)  # keyword-only
         want = oracle_engine.search(qtext, None, 5, now=NOW)
         assert [h.chunk.id for h in got] == [h.chunk.id for h in want], qtext

@@ -133,3 +133,12 @@ def test_hybrid_keyword_term_is_live(built):
     assert token in with_kw[0].chunk.content
     # same top chunk, strictly higher score with the matching keyword
     assert with_kw[0].score > without[0].score
+
+
+def test_make_tables_rejects_non_power_of_two_noise():
+    """Row derivation masks the noise id with noise_k - 1, which only
+    spans every noise row when noise_k is a power of two."""
+    with pytest.raises(ValueError, match="power of two"):
+        compact.make_tables(16, 8, noise_k=3000)
+    center8, noise8 = compact.make_tables(16, 8, noise_k=64)
+    assert noise8.shape == (64, 8)

@@ -24,7 +24,7 @@ def tiny_params():
 
 
 def test_tokenizer_round_trip():
-    text = "Hello, TPU wörld! é中"
+    text = "Hello, GPU wörld! é中"
     toks = decoder.encode_text(text)
     assert toks[0] == decoder.BOS
     assert decoder.decode_tokens(toks) == text
@@ -60,7 +60,7 @@ def test_forward_is_causal(tiny_params):
 def test_kv_cache_decode_matches_full_forward(tiny_params):
     """Greedy generation through prefill+cached decode_step must equal a
     greedy rollout that re-runs the full teacher-forcing forward each step."""
-    prompts = ["hello world", "tpu"]
+    prompts = ["hello world", "gpu"]
     lp, steps = 32, 8
     ids = decoder.pad_left_batch([decoder.encode_text(p) for p in prompts], lp)
 
@@ -325,24 +325,24 @@ def test_local_mode_fallback_chain_keeps_github_models(tiny_params):
 
 
 def test_coarse_layout_adapts_sub_to_corpus_size():
-    """The coarse layout must keep >= m candidates at every corpus size by
-    narrowing sub (a fixed sub=1024 would disable the prepass at 8k rows
-    and collapse certificate resolution at 256k)."""
-    from omni_recall_tpu.search.engine import _coarse_layout
+    """The scan layout must keep >= m candidates at every corpus size: the
+    slice is the kernel's row tile (halved until it divides the rows) and
+    the depth grows as the slice count shrinks."""
+    from omni_recall_tpu.search.engine import _scan_layout
 
-    # 1M rows: widest slices; t floored at 4 — per-slice top-1 loses
-    # co-located cluster rows (~2 expected collisions/query at 1M) and
-    # collapses certificate resolution (round-3 root cause)
-    sub, t = _coarse_layout(1 << 20, 128, 2048)
-    assert (sub, t) == (1024, 4)
-    # 256k rows: budget >= 4m restores resolution via t=2
-    sub, t = _coarse_layout(1 << 18, 128, 2048)
-    assert sub * 1 <= (1 << 18) and ((1 << 18) // sub) * t >= 4 * 128
-    # 8k rows: prepass still available via a narrower sub
-    layout = _coarse_layout(8192, 128, 2048)
-    assert layout is not None
-    sub, t = layout
-    assert (8192 // sub) * t >= 128
+    # 1M rows: t floored at 4 — per-slice top-1 loses co-located cluster
+    # rows and collapses certificate resolution
+    assert _scan_layout(1 << 20, 128) == (128, 4)
+    # 256k rows: the budget still covers >= 4m
+    sub, t = _scan_layout(1 << 18, 128)
+    assert ((1 << 18) // sub) * t >= 4 * 128
+    # 8k rows: depth grows to keep the prepass available
+    sub, t = _scan_layout(8192, 128)
+    assert (8192 // sub) * t >= 128 and t > 4
+    # a row count no tile divides has no layout
+    assert _scan_layout(100, 8) is None
+    # a row count the full tile does not divide takes a narrower slice
+    assert _scan_layout(64 * 3, 8)[0] == 64
 
 
 def test_encode_text_max_bytes_zero():

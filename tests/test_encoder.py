@@ -21,7 +21,7 @@ def params():
 
 
 def test_forward_shape_and_normalization(params):
-    ids = jnp.asarray(encoder.tokenize_batch(["hello world", "tpu kernels go brr"], CFG))
+    ids = jnp.asarray(encoder.tokenize_batch(["hello world", "gpu kernels go brr"], CFG))
     z = encoder.forward(params, ids, CFG)
     assert z.shape == (2, CFG.out_dim)
     norms = np.linalg.norm(np.asarray(z), axis=1)

@@ -134,8 +134,8 @@ def test_sharded_serving_through_the_server():
     assert app_s.engine._sharded_scorer is not None
     assert app_s.engine.device_index.mesh is not None
     for client in (client_s, client_1):
-        client.upload("/api/documents/upload", filename="tpu.txt",
-                      data=b"tpu kernels are fast and use the mxu")
+        client.upload("/api/documents/upload", filename="gpu.txt",
+                      data=b"gpu kernels are fast and use the tensor cores")
         client.upload("/api/documents/upload", filename="mem.txt",
                       data=b"personal memory recall over uploaded notes")
     body = {"query": "memory recall", "topK": 2}
@@ -154,13 +154,13 @@ def test_sharded_serving_through_the_server():
 
 def test_recall_search_roundtrip_and_validation():
     app, client = _app(DEFAULT_OVERRIDES)
-    client.upload("/api/documents/upload", filename="tpu.txt",
-                  data=b"tpu kernels are fast and use the mxu systolic array")
-    resp = client.post("/api/recall/search", json_body={"query": "tpu kernels", "topK": 3})
+    client.upload("/api/documents/upload", filename="gpu.txt",
+                  data=b"gpu kernels are fast and use the tensor cores")
+    resp = client.post("/api/recall/search", json_body={"query": "gpu kernels", "topK": 3})
     assert resp.status == 200
     payload = resp.json()
-    assert payload["query"] == "tpu kernels"
-    assert payload["citations"][0]["fileName"] == "tpu.txt"
+    assert payload["query"] == "gpu kernels"
+    assert payload["citations"][0]["fileName"] == "gpu.txt"
     assert payload["citations"][0]["score"] > 0
     assert "createdAtUtc" in payload["citations"][0]
 
@@ -247,7 +247,9 @@ def test_health_endpoint_and_swagger():
     names = [d["name"] for d in payload["dependencies"]]
     assert "storage-store" in names
     assert "ai-gemini" in names
-    assert "tpu-engine" in names
+    assert "device-engine" in names
+    engine_row = next(d for d in payload["dependencies"] if d["name"] == "device-engine")
+    assert "cpu" in engine_row["detail"]
 
     swagger = client.get("/swagger/v1/swagger.json")
     assert swagger.status == 200

@@ -38,7 +38,7 @@ def _build(n_chunks, rng, *, missing_emb_rate=0.15, window=300, candidate_m=16):
     vocab = [
         "".join(rng.choices(string.ascii_lowercase, k=rng.randint(2, 9)))
         for _ in range(80)
-    ] + ["optimization", "tpu", "kernel", "recall", "memory"]
+    ] + ["optimization", "gpu", "kernel", "recall", "memory"]
 
     for d in range(max(1, n_chunks // 4)):
         doc_id = f"doc_{d}"

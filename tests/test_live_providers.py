@@ -46,7 +46,7 @@ def test_live_gemini_embed_round_trip():
     client = GeminiEmbeddingClient(
         GeminiOptions(api_key=_GEMINI_KEY), output_dim=768
     )
-    result = client.embed("TPU systolic arrays multiply matrices.")
+    result = client.embed("GPU tensor cores multiply matrices.")
     # RateLimited is a legitimate live outcome (free-tier quota) — the
     # never-throw contract still holds; anything else must be a SUCCESS
     # with a usable, finite vector of the requested dimensionality

@@ -27,7 +27,7 @@ def client():
 
 
 def test_embed_returns_normalized_dim_vector(client):
-    res = client.embed("tpu kernels are fast")
+    res = client.embed("gpu kernels are fast")
     assert res.status == EmbeddingStatus.SUCCESS
     assert res.model == "local-encoder"
     assert len(res.vector) == 24
@@ -97,7 +97,7 @@ def test_ingestion_uses_batch_path_and_search_round_trips(client):
     client.embed_batch = counting_batch
     try:
         doc = app.ingestion_service.ingest(
-            "notes.txt", "the recall engine certifies exactness on tpu", "file"
+            "notes.txt", "the recall engine certifies exactness on gpu", "file"
         )
         assert calls["batch"] == 1
         resp = app.search_service.search("certifies exactness", top_k=3)

@@ -26,8 +26,8 @@ def _native_kw(terms, content):
 
 
 def test_native_builds_and_basic_scores(lib_available):
-    terms = oracle.query_terms("optim tpu missing")
-    content = "great optimization tips for tpu kernels"
+    terms = oracle.query_terms("optim gpu missing")
+    content = "great optimization tips for gpu kernels"
     assert _native_kw(terms, content) == pytest.approx(2 / 3)
 
 

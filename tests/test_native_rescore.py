@@ -57,7 +57,7 @@ def _fuzz_engine(rng, n=120):
     )
     engine = RecallEngine(store, options=opts)
     store.upsert_document(DocumentRecord(id="d", file_name="d", created_at_utc=T0))
-    vocab = ["tpu", "kernel", "récall", "memoria", "深層", "data"] + [
+    vocab = ["gpu", "kernel", "récall", "memoria", "深層", "data"] + [
         "".join(rng.choices(string.ascii_lowercase, k=rng.randint(2, 8)))
         for _ in range(30)
     ]
@@ -125,7 +125,7 @@ def test_native_rescore_after_delete_and_update():
         [r for r in range(dix.n_rows) if dix.meta[r] is not None][:30],
         dtype=np.int64,
     )
-    q = [("tpu kernel", hash_embedder.embed_text("tpu kernel", DIM))]
+    q = [("gpu kernel", hash_embedder.embed_text("gpu kernel", DIM))]
     got = engine._exact_rescore_rows(q, [live_rows], NOW)
     native._rescore_verified = False
     try:

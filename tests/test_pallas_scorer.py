@@ -1,11 +1,12 @@
-"""Fused Pallas kernel tests (interpret mode on CPU; the identical code path
-compiles natively on TPU — verified in bench and on-chip smoke runs).
+"""Scan kernel tests: the Triton kernel (ops/triton_scan.py) in interpret
+mode on CPU, and the engine's pallas backend against the oracle.
 
-The kernel emits per-block top-T candidates + a per-block bound; exactness
+The kernel emits per-slice top-t candidates + a per-slice bound; exactness
 comes from the engine certificate, so the key property tested here is
 SOUNDNESS: every row excluded from the candidate set has true upper-bound
 score <= the returned boundary."""
 
+import functools
 import random
 import string
 from datetime import datetime, timedelta, timezone
@@ -17,12 +18,15 @@ from omni_recall_tpu.config import EngineOptions
 from omni_recall_tpu.index.records import ChunkRecord, DocumentRecord
 from omni_recall_tpu.index.store import InMemoryIngestionStore
 from omni_recall_tpu.models import hash_embedder
-from omni_recall_tpu.ops import pallas_scorer, xla_scorer
+from omni_recall_tpu.ops import scan, triton_scan, xla_scorer
+from omni_recall_tpu.ops.quantize import quantize_rows_int8
 from omni_recall_tpu.search.engine import RecallEngine
 
 DIM = 128
 T0 = datetime(2026, 8, 1, tzinfo=timezone.utc)
 NOW = datetime(2026, 8, 16, tzinfo=timezone.utc)
+
+_KERNEL = functools.partial(triton_scan.scan_triton, interpret=True)
 
 
 def _random_inputs(rng, n, b=4, bloom_bits=256):
@@ -43,20 +47,29 @@ def _random_inputs(rng, n, b=4, bloom_bits=256):
     return emb, bloom, created, valid, q, kw_w, kw_b
 
 
+def _kernel_topm(emb, bloom, created, valid, q, kw_w, kw_b, now, r0, m, t):
+    """The full hybrid bound through the Triton kernel over int8 rows."""
+    q8, scale, err = quantize_rows_int8(emb)
+    n = emb.shape[0]
+    return scan.score_topm(
+        jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
+        jnp.asarray(bloom), jnp.asarray(created), jnp.asarray(valid),
+        jnp.asarray(q), jnp.asarray(kw_w), jnp.asarray(kw_b),
+        jnp.float32(now), jnp.int32(r0),
+        terms="cos_kw", m=m, t=t, sub=scan.scan_slice(n), scan=_KERNEL,
+    )
+
+
 def test_boundary_soundness_vs_exact_scores():
     rng = np.random.default_rng(13)
-    n, b, m, t = 2048, 4, 24, 16  # 2 blocks of 1024 -> 32 candidates emitted
-    emb, bloom, created, valid, q, kw_w, kw_b = _random_inputs(rng, n, b)
-    args = (
-        jnp.asarray(emb), jnp.asarray(bloom), jnp.asarray(created),
-        jnp.asarray(valid), jnp.asarray(q), jnp.asarray(kw_w),
-        jnp.asarray(kw_b), jnp.float32(50.0), jnp.int32(100),
-    )
-    vals, idxs = pallas_scorer.score_topm(*args, m=m, t=t, interpret=True)
+    n, b, m, t = 2048, 4, 24, 16  # 16 slices of 128 -> 256 candidates emitted
+    inputs = _random_inputs(rng, n, b)
+    vals, idxs = _kernel_topm(*inputs, 50.0, 100, m=m, t=t)
     vals, idxs = np.asarray(vals), np.asarray(idxs)
     # exact (f32, HIGHEST precision) scores without any certificate margin
     exact = np.asarray(
-        xla_scorer.ub_scores(*args)
+        xla_scorer.ub_scores(*(jnp.asarray(x) for x in inputs),
+                             jnp.float32(50.0), jnp.int32(100))
     ) - xla_scorer.CERT_EPS  # [B, n]
 
     for bi in range(b):
@@ -79,12 +92,8 @@ def test_masking_window_and_invalid_rows():
     emb, bloom, created, valid, q, kw_w, kw_b = _random_inputs(rng, n, b)
     valid[:] = True
     valid[700] = False
-    args = (
-        jnp.asarray(emb), jnp.asarray(bloom), jnp.asarray(created),
-        jnp.asarray(valid), jnp.asarray(q), jnp.asarray(kw_w),
-        jnp.asarray(kw_b), jnp.float32(50.0), jnp.int32(512),
-    )
-    vals, idxs = pallas_scorer.score_topm(*args, m=16, t=16, interpret=True)
+    vals, idxs = _kernel_topm(emb, bloom, created, valid, q, kw_w, kw_b,
+                              50.0, 512, m=16, t=8)
     vals, idxs = np.asarray(vals), np.asarray(idxs)
     live = vals[:, :16] > -np.inf
     assert live.any()
@@ -95,18 +104,13 @@ def test_masking_window_and_invalid_rows():
 
 def test_m_exceeding_block_capacity_raises():
     rng = np.random.default_rng(19)
-    emb, bloom, created, valid, q, kw_w, kw_b = _random_inputs(rng, 256, 2)
-    args = (
-        jnp.asarray(emb), jnp.asarray(bloom), jnp.asarray(created),
-        jnp.asarray(valid), jnp.asarray(q), jnp.asarray(kw_w),
-        jnp.asarray(kw_b), jnp.float32(50.0), jnp.int32(0),
-    )
+    inputs = _random_inputs(rng, 256, 2)
     try:
-        pallas_scorer.score_topm(*args, m=64, t=8, interpret=True)
+        _kernel_topm(*inputs, 50.0, 0, m=64, t=8)
         raised = False
     except ValueError:
         raised = True
-    assert raised  # 256 rows -> 1-2 blocks * 8 < 64
+    assert raised  # 256 rows -> 2 slices * 8 < 64
 
 
 def _seed_engine_corpus(store, rng, n_chunks):
@@ -169,42 +173,6 @@ def test_engine_pallas_falls_back_to_xla_on_tiny_index():
     assert [h.chunk.id for h in hits] == [h.chunk.id for h in expected]
 
 
-def test_cert_eps_covers_two_operand_bf16_rounding():
-    """Adversarial soundness: a legitimately unit-normalized f32 vector
-    whose elements sit just below a bf16 rounding midpoint loses ~2^-8
-    relative on EACH matmul operand; the self-cosine deficit (~0.0065)
-    exceeded the old one-operand eps of 4e-3. PALLAS_CERT_EPS must cover
-    the two-operand worst case."""
-    import math as _math
-
-    import jax.numpy as jnp
-
-    from omni_recall_tpu.ops.pallas_scorer import PALLAS_CERT_EPS
-
-    d = 768
-    u = 1.0 / _math.sqrt(d)
-    # bad value: just under the midpoint between two adjacent bf16 values
-    ulp = 2.0 ** (_math.floor(_math.log2(u)) - 7)  # bf16: 7 mantissa bits
-    v = _math.floor(u / ulp) * ulp + 0.499 * ulp
-    q = np.full(d, v, dtype=np.float64)
-    # solve the last element for exact unit norm (keeps 767 bad elements)
-    q[-1] = _math.sqrt(max(0.0, 1.0 - float(np.sum(q[:-1] ** 2))))
-    qf = q.astype(np.float32)
-    norm = float(np.linalg.norm(qf.astype(np.float64)))
-    assert abs(norm - 1.0) < 1e-6  # legitimate normalized input
-
-    exact = float(np.dot(qf.astype(np.float64), qf.astype(np.float64)))
-    qb = jnp.asarray(qf).astype(jnp.bfloat16)
-    device = float(
-        jnp.dot(qb, qb, preferred_element_type=jnp.float32)
-    )
-    deficit = exact - device
-    # the adversarial deficit really does exceed the old 4e-3-per-0.7 margin
-    assert 0.7 * deficit > 4e-3, deficit
-    # ... and the current margin covers it with the keyword term's 1e-3
-    assert 0.7 * deficit + 1e-3 < PALLAS_CERT_EPS, deficit
-
-
 def test_certificate_detects_concurrent_embedding_update():
     """A reindex (in-place embedding update) landing between the device
     snapshot and the host rescore must NOT produce a 'certified' ranking
@@ -258,105 +226,3 @@ def test_certificate_detects_concurrent_embedding_update():
     expected = oracle_engine.search(query, q_emb, 5, now=NOW)
     assert [h.chunk.id for h in hits] == [h.chunk.id for h in expected]
     assert hits[0].chunk.id == target.id
-
-
-def test_packed_key_emit_bit_identical_to_pair_emit():
-    """The packed single-i32 emit (emit_keys=True) + XLA decode must be
-    BIT-identical to the pair kernels' (vals, idxs) for every entry —
-    candidates, bounds, masked rows — across windows and invalid rows
-    (the decode runs the same decode_up/lane arithmetic the pair kernel
-    runs in-kernel)."""
-    from omni_recall_tpu.ops.quantize import quantize_rows_int8
-
-    rng = np.random.default_rng(11)
-    n, b = 1024, 8
-    emb, bloom, created, valid, q, kw_w, kw_b = _random_inputs(rng, n, b=b)
-    q8, scale, err = quantize_rows_int8(emb)
-    for sub, t, r0 in ((64, 2, 0), (128, 3, 137), (256, 4, 0)):
-        pair = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(r0), m=16, t=t, sub=sub,
-            interpret=True, emit_keys=False,
-        )
-        keys = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(r0), m=16, t=t, sub=sub,
-            interpret=True, emit_keys=True,
-        )
-        pv, pi = map(np.asarray, pair)
-        kv, ki = map(np.asarray, keys)
-        assert np.array_equal(pv, kv), (sub, t)
-        assert np.array_equal(pi, ki), (sub, t)
-    # non-pow2-compatible shapes (t=1 -> t1=2) silently fall back to the
-    # pair emit: same results by construction
-    a = pallas_scorer.score_topm_int8_coarse(
-        jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-        jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-        jnp.asarray(kw_w), jnp.asarray(kw_b),
-        jnp.float32(100.0), jnp.int32(0), m=8, t=1, sub=128,
-        interpret=True, emit_keys=True,
-    )
-    b_ = pallas_scorer.score_topm_int8_coarse(
-        jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-        jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-        jnp.asarray(kw_w), jnp.asarray(kw_b),
-        jnp.float32(100.0), jnp.int32(0), m=8, t=1, sub=128,
-        interpret=True, emit_keys=False,
-    )
-    assert np.array_equal(np.asarray(a[0]), np.asarray(b_[0]))
-    assert np.array_equal(np.asarray(a[1]), np.asarray(b_[1]))
-
-
-def test_transposed_key_emit_bit_identical_to_packed_emit():
-    """The TRANSPOSED packed-key emit (emit_keys="t", the r5 engine
-    default) must decode bit-identically to the packed emit — same key
-    transform, same per-round max winners (keys are unique per position),
-    same decode arithmetic — across layouts, windows and invalid rows.
-    Aux inputs ride the standard [1, N]/[B, 1] layouts and transpose per
-    block IN VMEM (a host-side [N, 1] reshape lane-pads 128x: measured
-    5 GB per aux column and an HBM OOM at the 10M config)."""
-    from omni_recall_tpu.ops.quantize import quantize_rows_int8
-
-    rng = np.random.default_rng(13)
-    n, b = 1024, 8
-    emb, bloom, created, valid, q, kw_w, kw_b = _random_inputs(rng, n, b=b)
-    q8, scale, err = quantize_rows_int8(emb)
-    for sub, t, r0 in ((64, 2, 0), (128, 3, 137), (256, 4, 0)):
-        packed = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(r0), m=16, t=t, sub=sub,
-            interpret=True, emit_keys=True,
-        )
-        keys_t = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(r0), m=16, t=t, sub=sub,
-            interpret=True, emit_keys="t",
-        )
-        assert np.array_equal(np.asarray(packed[0]), np.asarray(keys_t[0])), (sub, t)
-        assert np.array_equal(np.asarray(packed[1]), np.asarray(keys_t[1])), (sub, t)
-    # shapes the packed paths reject (t1 < 3) fall back to the pair emit
-    for ek in ("t", True):
-        f = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(0), m=8, t=1, sub=128,
-            interpret=True, emit_keys=ek,
-        )
-        g = pallas_scorer.score_topm_int8_coarse(
-            jnp.asarray(q8), jnp.asarray(scale), jnp.asarray(err),
-            jnp.asarray(created), jnp.asarray(valid), jnp.asarray(q),
-            jnp.asarray(kw_w), jnp.asarray(kw_b),
-            jnp.float32(100.0), jnp.int32(0), m=8, t=1, sub=128,
-            interpret=True, emit_keys=False,
-        )
-        assert np.array_equal(np.asarray(f[0]), np.asarray(g[0]))
-        assert np.array_equal(np.asarray(f[1]), np.asarray(g[1]))

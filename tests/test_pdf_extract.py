@@ -44,7 +44,7 @@ def test_tounicode_cmap_type0_font():
         b"/CIDInit /ProcSet findresource begin\n"
         b"begincmap\n"
         b"3 beginbfchar\n"
-        b"<0001> <0054>\n<0002> <0050>\n<0003> <0055>\n"
+        b"<0001> <0047>\n<0002> <0050>\n<0003> <0055>\n"
         b"endbfchar\nendcmap\nend"
     )
     font = b"<< /Type /Font /Subtype /Type0 /BaseFont /X /ToUnicode 3 0 R >>"
@@ -53,7 +53,7 @@ def test_tounicode_cmap_type0_font():
         + _stream_obj(b"BT /F1 12 Tf <000100020003> Tj ET")
     )
     pdf = _pdf([content, font, _stream_obj(cmap)])
-    assert extract_pdf_text(pdf) == "TPU"
+    assert extract_pdf_text(pdf) == "GPU"
 
 
 def test_tounicode_bfrange_and_compressed_cmap():

@@ -247,58 +247,3 @@ def test_pipelined_batches_match_sequential():
         for hp, hs in zip(pb, sb):
             assert [h.chunk.id for h in hp] == [h.chunk.id for h in hs]
             assert [h.score for h in hp] == [h.score for h in hs]
-
-
-def test_fused_pallas_kernel_matches_xla_refine():
-    """The TPU Pallas refine kernel (interpret mode here) must agree with
-    the pure-XLA refine_ub to f32 op-reorder tolerance (~1e-7 — REFINE_EPS
-    budgets 3e-5 for exactly this class of difference), with identical
-    -inf masking for sentinels/invalid/boundary slots."""
-    rng = np.random.default_rng(11)
-    n, d, b, m, bits = 1024, 128, 32, 16, 256
-    w = bits // 8
-    emb = rng.standard_normal((n, d)).astype(np.float32)
-    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
-    q1, s1, _, q2, s2, err2 = quantize_rows_int8_residual(emb)
-    bloom = rng.integers(0, 256, size=(n, w), dtype=np.uint8)
-    created = rng.uniform(0, 300, n).astype(np.float32)
-    valid = rng.random(n) > 0.15
-    q = rng.standard_normal((b, d)).astype(np.float32)
-    q[3] = 0.0  # keyword-only query
-    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
-    kw_w = np.abs(rng.standard_normal((b, bits)).astype(np.float32)) * 0.05
-    kw_bias = rng.uniform(0, 0.1, b).astype(np.float32)
-    rows = rng.integers(0, n, size=(b, m)).astype(np.int32)
-    rows[0, 0] = -1  # sentinel slot
-    vals = rng.standard_normal((b, m)).astype(np.float32)
-    vals[1, 2] = -np.inf  # empty candidate slot
-    from omni_recall_tpu.ops.pallas_scorer import quantize_kw_weights
-
-    kw8 = quantize_kw_weights(jnp.asarray(kw_w))
-    args = (
-        jnp.asarray(q1), jnp.asarray(s1), jnp.asarray(q2), jnp.asarray(s2),
-        jnp.asarray(err2), jnp.asarray(bloom), jnp.asarray(created),
-        jnp.asarray(valid), jnp.asarray(q), kw8, jnp.asarray(kw_bias),
-        jnp.float32(365.0), jnp.asarray(rows), jnp.asarray(vals),
-    )
-    ref_xla = np.asarray(refine.refine_ub(*args))
-    ref_pl = np.asarray(refine._refine_bounds_fused(*args, interpret=True))
-    assert np.array_equal(np.isfinite(ref_xla), np.isfinite(ref_pl))
-    fin = np.isfinite(ref_xla)
-    assert np.max(np.abs(ref_xla[fin] - ref_pl[fin])) < 1e-6
-
-
-def test_fused_ok_rejects_sub8_query_tiles():
-    """Mosaic requires the fused kernel's q-tile sublane dim (qg) to be a
-    multiple of 8 (or the whole batch). Escalation widths m >= 512 force
-    qg <= 4 at serving batches — those must route to the XLA refine
-    (regression: m=512 at B=1536 crashed the fused lowering)."""
-    from omni_recall_tpu.ops.refine import _fused_ok, _fused_qg
-
-    assert _fused_ok(768, 1536, 128, 1024)      # qg=16
-    assert _fused_ok(768, 1536, 256, 1024)      # qg=8
-    assert not _fused_ok(768, 1536, 512, 1024)  # qg=4 -> XLA path
-    assert not _fused_ok(768, 1536, 2048, 1024)  # qg=1 -> XLA path
-    assert _fused_ok(768, 4, 128, 1024)         # qg == b: full-batch tile
-    assert _fused_qg(1536, 512) == 4
-    assert not _fused_ok(768, 1536, 120, 1024) or 120 % 8 == 0

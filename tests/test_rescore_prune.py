@@ -35,7 +35,7 @@ def _engine(rng, n=150, duplicate_every=0, **opt_overrides):
     opts = EngineOptions(**kw)
     engine = RecallEngine(store, options=opts)
     store.upsert_document(DocumentRecord(id="d", file_name="d", created_at_utc=T0))
-    vocab = ["tpu", "kernel", "recall", "data"] + [
+    vocab = ["gpu", "kernel", "recall", "data"] + [
         "".join(rng.choices(string.ascii_lowercase, k=rng.randint(2, 8)))
         for _ in range(25)
     ]

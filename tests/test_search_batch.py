@@ -128,19 +128,18 @@ def test_rescue_scan_sliced_to_pending_parity():
 
 
 def test_coarse_layout_overrides_and_shallow():
-    from omni_recall_tpu.search.engine import _coarse_layout
+    from omni_recall_tpu.search.engine import SCAN_MAX_T, _scan_layout
 
-    # prefer_shallow: at >= 2048 slices of 512 the shallow (512, 2) layout
-    # wins (swept at 1M x 1536); below the slice threshold it falls back to
-    # the auto deep layout
-    assert _coarse_layout(1 << 20, 128, 1024, prefer_shallow=True) == (512, 2)
-    auto_small = _coarse_layout(1 << 16, 128, 1024)
-    assert _coarse_layout(1 << 16, 128, 1024, prefer_shallow=True) == auto_small
-    # explicit overrides are honored and clamped to the kernel's bounds
-    assert _coarse_layout(1 << 20, 128, 1024, 256, 3) == (256, 3)
-    assert _coarse_layout(1 << 20, 128, 1024, 512, 99)[1] <= 8  # PALLAS_BLOCK_T
+    # shallow (the coarse prepass): depth 2 once there are >= 2048 slices;
+    # below that threshold it keeps the auto deep layout
+    assert _scan_layout(1 << 20, 128, shallow=True) == (128, 2)
+    auto_small = _scan_layout(1 << 16, 128)
+    assert _scan_layout(1 << 16, 128, shallow=True) == auto_small
+    # an explicit depth is honored and clamped to the scan's bound
+    assert _scan_layout(1 << 20, 128, t_override=3) == (128, 3)
+    assert _scan_layout(1 << 20, 128, t_override=99)[1] <= SCAN_MAX_T
     # infeasible override (extraction budget below m) yields no layout
-    assert _coarse_layout(4096, 512, 1024, 1024, 1) is None
+    assert _scan_layout(4096, 512, t_override=1) is None
 
 
 def test_rebuild_index_atomic_swap_compacts_tombstones():

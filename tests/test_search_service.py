@@ -34,7 +34,7 @@ def _seed(store):
         "doc_c": [0.0, 0.0, 1.0],
     }
     contents = {
-        "doc_a": "alpha notes about tpu kernels",
+        "doc_a": "alpha notes about gpu kernels",
         "doc_b": "beta journal regarding gardens",
         "doc_c": "gamma memo concerning finance",
     }
